@@ -6,7 +6,7 @@ Measures read-pairs/s for:
   3. PEAR (-A pear) + pear_test plugin
   4. RDP-MLE and UPARSE
 
-Writes BENCH_EXTRA.json and prints one JSON line per config to stderr;
+Writes build/bench_extra.json and prints one JSON line per config to stderr;
 stdout stays empty (bench.py owns the driver-facing line).
 """
 
@@ -133,9 +133,10 @@ def main():
         cfg = oracle.OracleConfig(algorithm=oracle.make_algorithm(algo))
         results.append(run_config(algo, *plain, cfg, (), True))
 
-    with open(os.path.join(ROOT, "BENCH_EXTRA.json"), "w") as fh:
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "bench_extra.json"), "w") as fh:
         json.dump(results, fh, indent=1)
-    log("wrote BENCH_EXTRA.json")
+    log("wrote build/bench_extra.json")
 
 
 if __name__ == "__main__":

@@ -13,14 +13,14 @@ Stages:
   decode          NativeBatchReader (OpenMP 3-phase batch decode)
   pre+pack4       assembler._pre + psq_pack4 (upload prep)
   cand_host       psq_cand_mask over every row — the host twin of the
-                  device candidate search (the no-TPU fallback compute)
+                  device candidate search (the host engine's compute)
   finalize_arrays psq_finalize fmt=0 want_arrays (select+reconstruct)
   finalize_emit   psq_finalize fmt=1 (select+reconstruct+FASTA payload)
   host_chain      decode + pre/pack4 + finalize_emit serial, one thread
                   of Python driving OpenMP stages (the deployment bound)
 
-Writes BENCH_STAGES.json and prints the table to stderr. Run this with
-the TPU idle (host CPU contention skews every number).
+Writes build/bench_stages.json and prints the table to stderr. Run it
+on an otherwise idle host (CPU contention skews every number).
 """
 
 from __future__ import annotations
@@ -172,9 +172,9 @@ def main():
     dt, n = best_of(host_chain)
     results["host_chain_with_cand"] = (dt, n)
 
-    # the TPU-path host chain: candidate planes come from the device,
+    # the device-path host chain: candidate planes come from the device,
     # so the host does decode + pre/pack4 + finalize_emit only
-    def host_chain_tpu():
+    def host_chain_device():
         a = BatchAssembler(L=512)
         n = i = 0
         for b in native.NativeBatchReader(B1, B2, policy="PRESENT",
@@ -188,8 +188,8 @@ def main():
             n += st["B"]
         return n
 
-    dt, n = best_of(host_chain_tpu)
-    results["host_chain_tpu_path"] = (dt, n)
+    dt, n = best_of(host_chain_device)
+    results["host_chain_device_path"] = (dt, n)
 
     out = {}
     log(f"{'stage':24s} {'ms/batch':>9s} {'pairs/s':>10s}")
@@ -200,7 +200,8 @@ def main():
         log(f"{k:24s} {dt/nbk*1e3:9.1f} {n/dt:10.0f}")
     out["ncpu"] = os.cpu_count()
     out["batch"] = BATCH
-    path = os.path.join(ROOT, "BENCH_STAGES.json")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "bench_stages.json")
     # the host has minutes-scale noisy-neighbor weather (wall numbers
     # swing 2-3x): merge per-stage bests across runs unless disabled
     if os.environ.get("BENCH_STAGES_MERGE", "1") != "0" \

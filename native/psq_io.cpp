@@ -1,7 +1,7 @@
 // pandaseq_tpu native host IO: paired FASTQ decoding straight into the
-// batch tensors the TPU pipeline consumes.
+// batch tensors the device pipeline consumes.
 //
-// TPU-native equivalent of the reference's L1/L2 C stack (linebuf.c,
+// Batched equivalent of the reference's L1/L2 C stack (linebuf.c,
 // fileio.c, fastq.c, seqid.c): instead of handing one read pair at a time
 // to a per-pair assembler, it fills [batch, stride] int8 nt/qual arrays
 // (plus lengths and canonical id strings) for the batched device step.

@@ -217,6 +217,8 @@ class Assembler:
     # -- assembly --
     def _ensure_engine(self) -> BatchAssembler:
         if self._engine is None:
+            from .runtime import enable_compilation_cache
+            enable_compilation_cache()
             self._engine = BatchAssembler(self.cfg, L=self.L,
                                           modules=self.modules)
         return self._engine

@@ -34,6 +34,7 @@ ERROR_CODES = {0: None, 1: "EOF", 2: "BADID", 3: "NOTPAIRED", 4: "BADNT",
                5: "BADSEQ", 6: "READLEN", 7: "NOQUAL"}
 
 _lib = None
+build_error = None  # why the last build() failed (g++'s stderr)
 
 
 def _find_bz2():
@@ -60,12 +61,17 @@ def build(force: bool = False) -> str | None:
     so = os.path.join(_SODIR, f"_psq_io-{tag}.so")
     if not force and os.path.exists(so):
         return so
+    global build_error
     cmd = ["g++", "-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17",
            "-o", so + ".tmp", _SRC, "-lz", _find_bz2()]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
         os.replace(so + ".tmp", so)
-    except (subprocess.CalledProcessError, FileNotFoundError, OSError):
+    except subprocess.CalledProcessError as e:
+        build_error = e.stderr.decode(errors="replace")
+        return None
+    except OSError as e:
+        build_error = repr(e)
         return None
     return so
 

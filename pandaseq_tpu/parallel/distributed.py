@@ -1,10 +1,10 @@
 """Multi-host data-parallel driver.
 
 The reference's scaling story is one node of pthreads over a mutex'd
-reader (pool.c/mux.c). The TPU-native story (SURVEY.md §2.4): every host
-decodes its input shard, every chip assembles its share of the batch,
-and the STAT counters + overlap histogram are reduced with psum over
-ICI/DCN at the end — output streams stay host-local (the threaded
+reader (pool.c/mux.c). Here (SURVEY.md §2.4): every host decodes its
+input shard, every device assembles its share of the batch, and the
+STAT counters + overlap histogram are reduced with a device-axis sum
+at the end — output streams stay host-local (the threaded
 reference's output order is already nondeterministic, so per-host files
 match its semantics).
 
@@ -32,14 +32,14 @@ import numpy as np
 
 
 def maybe_initialize_distributed():
-    """jax.distributed.initialize when a cluster env is present."""
+    """jax.distributed.initialize when a cluster env is present. A
+    failed initialisation raises: a host that silently ran alone would
+    write a partial output as if it were the whole."""
     import jax
-    if os.environ.get("JAX_COORDINATOR_ADDRESS") or \
-            os.environ.get("COORDINATOR_ADDRESS"):
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            pass
+    addr = (os.environ.get("JAX_COORDINATOR_ADDRESS")
+            or os.environ.get("COORDINATOR_ADDRESS"))
+    if addr:
+        jax.distributed.initialize(coordinator_address=addr)
     return jax.process_index(), jax.process_count()
 
 

@@ -3,7 +3,7 @@ collective STAT counters.
 
 The reference's only parallelism is single-node pthread data-parallelism
 over read pairs (pool.c:110, mux.c:132) — read pairs are independent, so
-the TPU-native design is a 1-D (or 2-D) SPMD program over a
+the design here is a 1-D (or 2-D) SPMD program over a
 jax.sharding.Mesh:
 
   * ``dp`` axis: the batch of read pairs is sharded across chips, the
@@ -132,13 +132,7 @@ def _sharded_cand_body_packed4(plane4, flen, rlen, *, L, O, num_kmers):
 
     flen = flen.astype(jnp.int32)
     rlen = rlen.astype(jnp.int32)
-    q = L // 4
-    p32 = plane4.astype(jnp.int32) & 0xFF
-    unpack2 = lambda w: jnp.concatenate(
-        [(w >> (2 * t)) & 3 for t in range(4)], axis=1)
-    cf = unpack2(p32[:, :q])
-    cr = unpack2(p32[:, q:2 * q])
-    nonn = jnp.ones(cf.shape, dtype=bool)
+    cf, cr, nonn = fused2._unpack2bit(plane4, L)
     Fkm, Rkm = fused2.kmer_frames_codes(cf, nonn, cr, nonn, flen, rlen,
                                         L, num_kmers)
     candc = jax.lax.psum(

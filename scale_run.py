@@ -2,6 +2,11 @@
 across N >= 2 hosts (BASELINE.md:34; the reference's regression-at-scale
 discipline, testing/reg-test.vala:24).
 
+It measures only the host path, on the CPU backend: every worker pins
+JAX_PLATFORMS=cpu. Do not point it at one GPU from several processes —
+each JAX process would reserve most of the card's memory, and the
+second would fail.
+
 Runs the SAME stream twice on the virtual CPU mesh:
   1. single process ("1 host"),
   2. N real OS processes coordinated by jax.distributed (Gloo), mux mode
@@ -11,14 +16,14 @@ identical to the single-process output (order-independent multiset
 sha256 — the threaded reference's output order is nondeterministic, so
 record identity is the meaningful contract), plus psum-reduced global
 STAT equality. Records per-host throughput and scaling efficiency to
-SCALE_r{N}.json.
+build/scale.json.
 
 Each process is pinned to cpus/N OpenMP threads so "N hosts" split this
 machine's cores fairly; efficiency is aggregate 2-proc rate over 2x the
 1-proc rate.
 
 Usage: python scale_run.py [--pairs 10000000] [--procs 2]
-                           [--out SCALE_r04.json]
+                           [--out build/scale.json]
 """
 
 from __future__ import annotations
@@ -200,8 +205,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs", type=int, default=10_000_000)
     ap.add_argument("--procs", type=int, default=2)
-    ap.add_argument("--out", default=os.path.join(ROOT, "SCALE_r04.json"))
-    ap.add_argument("--workdir", default="/tmp/psq_scale")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build",
+                                                  "scale.json"))
+    ap.add_argument("--workdir", default=os.path.join(ROOT, "build",
+                                                      "psq_scale"))
     ap.add_argument("--skip-mux", action="store_true",
                     help="striped mode only")
     ap.add_argument("--mode", choices=["both", "striped", "mux"],
@@ -235,6 +242,7 @@ def main():
     if args.mode in ("both", "mux") and not args.skip_mux:
         out["mux_shared_stream"] = run_mode("mux", inputs[:1], args.procs,
                                             omp, args.workdir)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(out, fh, indent=1)
     ok = all(m["output_identical"] and m["global_stat_identical"]

@@ -1,7 +1,7 @@
 """bench.py robustness: a driver kill at ANY point must leave a
-parseable final-format JSON record in the stdout tail (VERDICT r4
-item 1 — BENCH_r04.json was rc 124 / parsed null because the old bench
-printed its only JSON line at the very end)."""
+parseable final-format JSON record in the stdout tail (an earlier
+bench printed its only JSON line at the very end, so a timeout left
+nothing to parse)."""
 
 import json
 import os

@@ -1,8 +1,8 @@
 """Engine auto-selection (runtime.pick_engine): the deployment default
-must never lose to its own host fallback (VERDICT r4 weakness 3). On
-the CPU test backend the probe short-circuits to host; env pins and the
-legacy PANDASEQ_TPU_HOST override take priority; the CLI logs the
-choice in its provenance lines (args.c:515-531 analogue)."""
+must never lose to its own host fallback. On the CPU test backend the
+probe short-circuits to host; env pins and the legacy PANDASEQ_TPU_HOST
+override take priority; the CLI logs the choice in its provenance lines
+(args.c:515-531 analogue)."""
 
 import os
 import subprocess
@@ -22,8 +22,8 @@ def test_pick_engine_cpu_backend_shortcuts_to_host(monkeypatch):
 
 def test_pick_engine_env_pin(monkeypatch):
     from pandaseq_tpu.runtime import pick_engine
-    monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "tpu")
-    assert pick_engine()[0] == "tpu"
+    monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "device")
+    assert pick_engine()[0] == "device"
     monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "host")
     assert pick_engine()[0] == "host"
 
@@ -34,14 +34,14 @@ def test_assembler_engine_priority(monkeypatch):
     # constructor pin wins over everything
     monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "host")
     asm = BatchAssembler(host_only=False)
-    assert asm.engine == "tpu"
+    assert asm.engine == "device"
     assert asm.engine_info["reason"] == "constructor"
 
     # PANDASEQ_TPU_ENGINE beats the legacy var
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "1")
-    monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "tpu")
+    monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "device")
     asm = BatchAssembler()
-    assert asm.engine == "tpu"
+    assert asm.engine == "device"
 
     # legacy var still honored when ENGINE is unset
     monkeypatch.delenv("PANDASEQ_TPU_ENGINE", raising=False)

@@ -3,6 +3,7 @@ assemble_shortlist_packed (one [B, 3L] int8 argument) equals the
 three-argument assemble_shortlist bit-for-bit."""
 
 import numpy as np
+import pytest
 
 
 def _popcount_rows(mask):
@@ -190,3 +191,37 @@ def test_cand_list_matches_mask_including_overflow():
             mask[b].view(np.uint8), bitorder="little")) + 1
         want = list(bits[:C]) + [0] * (C - min(C, len(bits)))
         assert list(lst[b, 1:1 + C]) == want, b
+
+
+def _dense_plane_cand(F, R, O):
+    """The untiled diagonal reduction: the reference every blocking of
+    fused2._plane_cand_tri must equal."""
+    import jax
+    import jax.numpy as jnp
+
+    kq = (F[:, :O, None] == R[:, None, :O]).astype(jnp.int8)
+    T3 = fused2._diag_t3(O, 0, O, jnp.int8)
+    return jax.lax.dot_general(
+        kq, T3, (((1, 2), (0, 1)), ((), ())),
+        preferred_element_type=jnp.int32)
+
+
+@pytest.mark.parametrize("B,L,O", [(4, 256, 256), (8, 128, 96),
+                                   (4, 384, 384)])
+def test_tri_equals_dense_various_nb(B, L, O):
+    """Triangular blocking drops only provably-zero MACs: every nb
+    that divides O equals the dense product bit-for-bit."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(1)
+    Fkm = rng.integers(0, 300, (B, L)).astype(np.int32)
+    Rkm = rng.integers(0, 300, (B, L)).astype(np.int32)
+    Fkm[rng.random((B, L)) < 0.3] = -1   # not stored
+    Rkm[rng.random((B, L)) < 0.3] = -2   # not emitted
+    F, R = jnp.asarray(Fkm), jnp.asarray(Rkm)
+    ref = np.asarray(_dense_plane_cand(F, R, O))
+    for nb in (1, 2, 4, 8, 16):
+        if O % nb:
+            continue
+        got = np.asarray(fused2._plane_cand_tri(F, R, O, nb=nb))
+        assert np.array_equal(ref, got), (B, L, O, nb)

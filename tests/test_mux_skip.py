@@ -3,7 +3,7 @@ _claimed_batches): a host sharing one stream must see bit-identical
 planes for its claimed batches whether the other hosts' batches were
 fully decoded or skipped — including the persistent-quality-buffer
 stale tails (fastq.c:33-36 PEAR quirk), NODATA counting, error
-position and stream flags (VERDICT r4 item 4; mux.c:132-161)."""
+position and stream flags (mux.c:132-161)."""
 
 import numpy as np
 import pytest

@@ -81,9 +81,7 @@ def test_phred64_bit_identical(extra):
 def test_million_pair_soak():
     """Opt-in large-scale soak (PSQ_SOAK=1): sha256 byte-equality with
     the reference over the ~1M-pair mega dataset, simple_bayesian and
-    rdp_mle (all 7 algorithms verified 2026-08-17 on the v5e dev
-    chip over 1,048,576 pairs; the two here keep the opt-in run
-    short). Regenerate the dataset with
+    rdp_mle (the two here keep the opt-in run short). Regenerate the dataset with
     tests/golden/make_data.py --pairs 1048576 --out-prefix
     tests/data/mega."""
     import hashlib
